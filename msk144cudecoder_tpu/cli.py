@@ -20,7 +20,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="msk144tpudecoder",
         description=(
-            "TPU-native MSK144 stream decoder. Reads 12 kS/s samples on stdin "
+            "MSK144 stream decoder on JAX. Reads 12 kS/s samples on stdin "
             "(16-bit signed mono audio, or 2x8-bit signed IQ), prints decoded "
             "messages on stdout."
         ),
@@ -42,19 +42,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-survivors", type=int, default=256,
                    help="static LDPC batch size (top-K survivors under "
                         "per-pattern quotas; 256 reproduces the "
-                        "decode-everything reference behavior across the "
-                        "committed validation battery — see config.py). "
-                        "Heavy-pileup bands may want 512: the battery's "
-                        "regime is 4 simultaneous pings, and the survivor-"
-                        "overflow warning on stderr is the signal to raise "
-                        "this")
+                        "decode-everything reference behavior on the busy-"
+                        "band battery — see config.py). Heavy-pileup bands "
+                        "may want 512: the battery's regime is 4 "
+                        "simultaneous pings, and the survivor-overflow "
+                        "warning on stderr is the signal to raise this")
     p.add_argument("--scan-decimation", type=int, default=4, choices=(1, 2, 4),
-                   help="coarse sync-scan lag grid: correlate every Nth lag "
-                        "(scan cost ~1/N; the demod absorbs the <=N-1-sample "
-                        "candidate offset — measured on-chip, no decode is "
-                        "ever lost vs N=1 and the -8 dB tail gains a few). "
-                        "1 = the full per-lag grid, exact reference scan "
-                        "semantics (default 4)")
+                   help="coarse sync-scan lag grid: select candidates on "
+                        "every Nth lag (the demod absorbs the <=N-1-sample "
+                        "candidate offset). 1 = the full per-lag grid, "
+                        "exact reference scan semantics (default 4)")
     p.add_argument("--candidates-per-pattern", type=int, default=8,
                    help="top-k candidate lags demodulated per (frequency, "
                         "pattern), 1..8 (default 8 = reference behavior; "
@@ -62,9 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "best-sync lags)")
     p.add_argument("--survivor-prefilter", type=int, default=None,
                    help="demodulate only the top-P candidates by scan sync "
-                        "correlation (default: auto = 2x max-survivors on "
-                        "TPU, off elsewhere; 0 = off, demodulate every "
-                        "candidate like the reference)")
+                        "correlation (default: auto = 2x max-survivors; "
+                        "0 = off, demodulate every candidate like the "
+                        "reference)")
     p.add_argument("--window-batch", type=int, default=1,
                    help="windows decoded per device call")
     p.add_argument("--pipeline-depth", type=int, default=4,
@@ -72,19 +69,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "> 1): device calls for up to this many batches run "
                         "concurrently while post-processing stays in stream "
                         "order; 1 = fully synchronous (default 4)")
-    p.add_argument("--exact-math", action="store_true",
-                   help="exactness-verification precision instead of the "
-                        "native TPU policy (bf16 inputs, f32 accumulation): "
-                        "one-hot selections as exact 3x-bf16 splits, "
-                        "correlation matmuls as Karatsuba 2-way splits. "
-                        "Decode behavior is identical (see config.fast_math)"
-                        "; ~24%% slower on v5e")
     p.add_argument("--platform", type=str, default=None,
-                   help="force a JAX platform (e.g. cpu, tpu); wins over the "
-                        "environment even where JAX_PLATFORMS is overridden")
+                   help="JAX platform to decode on (default cuda; the "
+                        "decoder stops when it finds no such device). "
+                        "cpu runs on the host CPU")
     p.add_argument("--profile-dir", type=str, default=None,
                    help="write a jax.profiler trace to this directory (the "
-                        "TPU analog of the reference's USE_SIMPLE_GPU_TIMER)")
+                        "analog of the reference's USE_SIMPLE_GPU_TIMER)")
     return p
 
 
@@ -100,7 +91,6 @@ def config_from_args(args: argparse.Namespace) -> DecoderConfig:
         candidates_per_pattern=args.candidates_per_pattern,
         survivor_prefilter=args.survivor_prefilter,
         window_batch=args.window_batch,
-        fast_math=not args.exact_math,
         scan_decimation=args.scan_decimation,
     )
     if args.center_frequency is not None:
@@ -130,7 +120,6 @@ def print_banner(cfg: DecoderConfig, out=None) -> None:
         f"Candidate slots: {cfg.num_candidates}",
         f"LDPC survivor batch: {cfg.max_survivors}",
         f"Scan lag grid: every {cfg.scan_decimation} sample(s)",
-        f"Precision: {'native (bf16/f32-acc)' if cfg.fast_math else 'exact'}",
         "",
     ]
     print("\n".join(lines), file=out)
@@ -139,16 +128,17 @@ def print_banner(cfg: DecoderConfig, out=None) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    print_banner(cfg)
-
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
 
     # Import JAX lazily so --help stays instant.
-    from .runtime.jaxcache import enable_persistent_cache
+    from .runtime.backend import (NoDeviceError, enable_persistent_cache,
+                                  use_platform)
 
+    try:
+        use_platform(args.platform)
+    except NoDeviceError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 2
+    print_banner(cfg)
     enable_persistent_cache()
     from .runtime import StreamDecoder
     from .runtime import native
@@ -175,9 +165,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         for item in results:
             print(item.format_line(), flush=True)
 
-    if args.profile_dir:
-        import jax
+    import time
 
+    import jax
+
+    t_start = time.perf_counter()
+    t_first = None  # wall clock when the first results were emitted
+
+    def first_done():
+        nonlocal t_first
+        if t_first is None:
+            t_first = time.perf_counter()
+            print(f"First results (compile + run): {t_first - t_start:.2f} s",
+                  file=sys.stderr)
+
+    if args.profile_dir:
         jax.profiler.start_trace(args.profile_dir)
 
     if cfg.window_batch <= 1:
@@ -201,23 +203,23 @@ def main(argv: Optional[List[str]] = None) -> int:
             if decoder.in_flight > 1:
                 with ScopedMetric("collect"):
                     results = decoder.collect()
+                first_done()
                 emit(results, timer.milliseconds_elapsed(), 1)
                 timer = SimpleTimer()
             loop_span.stop()
         while decoder.in_flight:
             with ScopedMetric("collect"):
                 results = decoder.collect()
+            first_done()
             emit(results, timer.milliseconds_elapsed(), 1)
             timer = SimpleTimer()
     else:
         # Throughput mode: decode window_batch windows per device call, with
         # up to pipeline_depth batches' DEVICE calls in flight on a worker
-        # pool (each worker's dispatch+fetch round trips overlap the others',
-        # the same mechanism as bench.py's multi-stream protocol), while
-        # post-processing/emission stays strictly in stream order on this
-        # thread. The batch shape is fixed (one jit compile); the stream
-        # tail is zero-padded and its pad results dropped.
-        import time
+        # pool (each worker's dispatch+fetch round trips overlap the
+        # others'), while post-processing/emission stays strictly in stream
+        # order on this thread. The batch shape is fixed (one jit compile);
+        # the stream tail is zero-padded and its pad results dropped.
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
@@ -240,6 +242,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             last_done = now
             if t_steady is None:
                 t_steady = now  # first batch = compile; exclude from steady state
+                first_done()
             else:
                 n_done += n
             with ScopedMetric("postprocess"):
@@ -289,10 +292,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
 
     if args.profile_dir:
-        import jax
-
         jax.profiler.stop_trace()
         print(f"Profiler trace written to {args.profile_dir}", file=sys.stderr)
+    stats = jax.devices()[0].memory_stats()
+    if stats and "peak_bytes_in_use" in stats:
+        print(f"Device peak memory: {stats['peak_bytes_in_use']} bytes",
+              file=sys.stderr)
 
     print("Done")
     return 0

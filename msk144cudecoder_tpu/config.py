@@ -32,19 +32,12 @@ class DecoderConfig:
     max_survivors: int = 256  # static LDPC batch: top-K candidates by
     # (nbadsync, xb) under per-pattern quotas; replaces the reference's
     # dynamic stream compaction (src/index_kernel.cuh) which XLA's static
-    # shapes cannot express. 256 is validated against the reference's
-    # decode-everything semantics on v5e: the deep-scan sensitivity floor
-    # is trial-for-trial identical to K=512 AND to the unconstrained
-    # decode (100%/-4, 90%/-6, 35%/-8 dB), and the staggered busy-band
-    # battery (>3400 genuine survivors/window) reproduces every
-    # per-message (num_avg, nbadsync) the unconstrained run prints
-    # (tests/test_busyband.py, tools/run_hwtests.py). K=128 starts losing
-    # lowest-num_avg rows under pileups (per-pattern quota ~21). The BP
-    # batch and the 2K-deep demod prefilter both scale with K, so K=512
-    # costs ~1.5x the per-window time for no behavioral difference.
-    use_pallas: bool | None = None  # fused Pallas kernels for scan+demod:
-    # None = auto (Pallas on TPU, where XLA's gather lowering runs on the
-    # scalar core and costs ~900 ms/window; pure-jnp elsewhere)
+    # shapes cannot express. The staggered busy-band battery (>3400 genuine
+    # survivors/window, tests/test_busyband.py) reproduces at K=256 every
+    # per-message (num_avg, nbadsync) the unconstrained decode-everything
+    # run prints. K=128 starts losing lowest-num_avg rows under pileups
+    # (per-pattern quota ~21). The BP batch and the 2K-deep demod prefilter
+    # both scale with K.
     max_results: int = 64  # result slots returned per window: the K-survivor
     # table is compacted found-first on device so only decodes (plus the best
     # non-decodes for diagnostics) cross the host link
@@ -55,19 +48,18 @@ class DecoderConfig:
     # always rank first at their own (freq, pattern) — see
     # tools/sensitivity_sweep.py results in ARCHITECTURE.md — so lowering k
     # trades diagnostics-row parity (chance noise survivors at xb rank > k
-    # are not tracked) for a proportional cut of the demod kernel's
-    # per-candidate extraction/shift/matched-filter work.
+    # are not tracked) for a proportional cut of the demod's
+    # per-candidate frame gather and matched-filter work.
     survivor_prefilter: int | None = None  # demodulate only the top-P
     # candidates by scan xb (the |sync correlation| the demod itself would
     # re-derive as its carrier magnitude), instead of all F*depth*8. The
-    # reference demodulates everything because each CUDA block is cheap to
-    # launch; on TPU the per-candidate extraction dominates, and every
-    # realistically decodable candidate sits far up the xb order (decodes
-    # require a strong sync correlation by construction). None = auto: 2x
-    # max_survivors on the Pallas (TPU) path, off elsewhere. 0 = off (full
-    # demod, exact reference candidate-set semantics). When active,
-    # num_survivors counts threshold-passing candidates within the
-    # prefiltered set (a lower bound on the true count).
+    # reference demodulates everything; every realistically decodable
+    # candidate sits far up the xb order (decodes require a strong sync
+    # correlation by construction). None = auto: 2x max_survivors, on every
+    # backend. 0 = off (full demod, exact reference candidate-set
+    # semantics). When active, num_survivors counts threshold-passing
+    # candidates within the prefiltered set (a lower bound on the true
+    # count).
     prefilter_per_cell: int = 2  # cap on prefiltered candidates per (freq,
     # pattern) cell. One transmission occupies one sync lag per cell, so
     # same-cell slots beyond the best are noise duplicates; capping shrinks
@@ -75,42 +67,14 @@ class DecoderConfig:
     # candidates (deep scan: 24,048 -> 6,012). >= 2 keeps two overlapping
     # same-frequency transmissions alive; 8 (= all slots) disables the cap.
     # Ignored when the prefilter is off.
-    fast_math: bool = True  # NATIVE TPU PRECISION POLICY (the default):
-    # compute stages run on bf16 inputs with f32 accumulation — the TPU's
-    # native arithmetic, as fp32 is CUDA's native arithmetic in the
-    # reference. Softbits and the scan metric carry ~2^-8 relative noise;
-    # decode BEHAVIOR is measurably identical to the exact mode across the
-    # validation battery (deep-scan sensitivity floor 100%/-4, 90%/-6,
-    # 35%/-8 dB bit-for-bit the same trials; 4-signal busy-band decode sets
-    # identical — ARCHITECTURE.md), because LLR-level noise is far below
-    # the noise floor BP already absorbs, and all BIT-VALUED stages (hard
-    # decisions, sync counts, parity, CRC, payload) remain exact integers.
-    # fast_math=False selects the exactness-verification mode: one-hot
-    # selections as exact 3x-bf16 mantissa splits, correlation matmuls as
-    # Karatsuba 2-way splits (~2^-16), softbits within 3e-4 of the float64
-    # golden model. ~24% slower on v5e (0.35 vs 0.28 ms/window deep scan).
-    # (The reference's USE_FAST_MATH CMake option is the loose analog,
-    # CMakeLists.txt:130-132 — though CUDA fast-math relaxes transcendental
-    # accuracy, while this knob only chooses MXU input width.)
     window_batch: int = 1  # windows decoded per device call
-    scan_decimation: int = 4  # coarse lag grid: the sync scan correlates
-    # every dec-th lag (dec in {1, 2, 4}) instead of all 5184. Every roll
-    # the pattern combine needs (864m and 336) is divisible by 4, so the
-    # decimated field is EXACT at its lags — candidates can only land up to
-    # dec-1 samples off the full-resolution argmax. The demod is measurably
-    # indifferent to that offset; on the real chip at the deep-scan
-    # validation protocol (width 500, step 1, depth 6, K=512, 20 trials)
-    # the floor is 100%/-4 and 90%/-6 at every dec, and at -8 dB the
-    # decoded-trial sets are STRICT SUPERSETS of dec=1's (dec1 7/20 ⊂
-    # dec2 8/20 ⊂ dec4 9/20, same seeds): no trial is ever lost, marginal
-    # ones are gained. Busy-band per-message (num_avg, nbadsync) results
-    # are identical at all dec (tools/_scan_norefine_floor.py + the
-    # on-chip battery), so no ±1-refine stage is needed. The scan is the
-    # dominant pipeline term at the K=256 default and its cost scales
-    # ~1/dec (v5e: dec2 = 0.43x, dec4 = 0.20x of the full-scan kernel —
-    # tools/_scan_r5_probe.py). 1 = the full-resolution scan, matching the
-    # reference's per-lag search grid exactly
-    # (/root/reference/src/scan_kernel.cuh:85-124).
+    scan_decimation: int = 4  # coarse lag grid: candidate selection
+    # keeps every dec-th lag (dec in {1, 2, 4}) instead of all 5184. Every
+    # roll the pattern combine needs (864m and 336) is divisible by 4, so
+    # the decimated field is EXACT at its lags — candidates can only land
+    # up to dec-1 samples off the full-resolution argmax, which the demod
+    # absorbs. 1 = the full-resolution grid, matching the reference's
+    # per-lag search exactly (/root/reference/src/scan_kernel.cuh:85-124).
 
     def __post_init__(self):
         d = min(max(self.scan_depth, 1), C.SCAN_DEPTH_MAX)

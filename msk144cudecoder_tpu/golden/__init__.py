@@ -16,7 +16,9 @@ from .model import (  # noqa: F401
     rms_normalize_int16,
     scan_candidates,
     scan_xb,
+    slice_candidates,
     synthesize_audio_int16,
     synthesize_baseband,
     synthesize_iq_int8,
+    synthesize_pings_int16,
 )

@@ -116,6 +116,29 @@ def synthesize_audio_int16(
     return np.clip(np.round(audio), -32768, 32767).astype(np.int16)
 
 
+def synthesize_pings_int16(
+    pings: Sequence[Tuple[str, float, float, int, int]],
+    num_frames: int,
+    rng: np.random.Generator,
+    scale: float = 1000.0,
+) -> np.ndarray:
+    """16-bit audio of meteor pings over one noise floor: each ping is
+    (text, f0_hz, snr_db, start_frame, n_frames), with synthesize_baseband's
+    SNR and noise conventions; pings may overlap in time."""
+    n = num_frames * C.FRAME_LEN
+    sig = np.zeros(n, dtype=np.complex128)
+    t = np.arange(n)
+    for text, f0, snr, s, L in pings:
+        bb = np.tile(modulate_frame(frame_bits_from_message(text)), L)
+        amp = np.sqrt(2.0 * 10 ** (snr / 10.0))
+        lo, hi = s * C.FRAME_LEN, (s + L) * C.FRAME_LEN
+        sig[lo:hi] += amp * bb * np.exp(
+            2j * np.pi * f0 * t[lo:hi] / C.SAMPLE_RATE)
+    noise_sigma = np.sqrt(0.5 * (C.SAMPLE_RATE / 2) / 2500.0) * np.sqrt(2.0)
+    sig += noise_sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return np.clip(np.round(sig.real * scale), -32768, 32767).astype(np.int16)
+
+
 def synthesize_iq_int8(
     messages: Sequence[Tuple[str, float]],
     num_frames: int,
@@ -268,26 +291,33 @@ def scan_xb(cdat: np.ndarray, f0: float, pattern_idx: int) -> np.ndarray:
     return np.abs(s)
 
 
-def scan_candidates(cdat: np.ndarray, freqs: np.ndarray, scan_depth: int) -> List[Candidate]:
-    """Top-8 candidates per (freq, pattern): best lag per 256-lag slice, then
-    top-8 of the 21 slice maxima (scan_kernel.cuh:85-364 semantics)."""
+def slice_candidates(xb: np.ndarray, dec: int = 1) -> List[Tuple[int, float]]:
+    """(pos, xb) of the top-8 slice maxima of one (freq, pattern) lag field:
+    best lag per 256-lag slice, then top-8 of the 21 slice maxima
+    (scan_kernel.cuh:85-364 semantics). dec > 1 searches only every dec-th
+    lag of each slice (config.scan_decimation)."""
+    padded = np.concatenate([xb, xb[: C.SCAN_PAD_LEN - C.WINDOW_LEN]])
+    sl = padded.reshape(C.NUM_SCAN_SLICES, C.SCAN_SLICE)[:, ::dec]
+    slice_arg = sl.argmax(axis=1)
+    slice_max = sl[np.arange(C.NUM_SCAN_SLICES), slice_arg]
+    top = np.argsort(-slice_max, kind="stable")[: C.NUM_CANDIDATES_PER_PATTERN]
+    return [((int(r) * C.SCAN_SLICE + dec * int(slice_arg[r])) % C.WINDOW_LEN,
+             float(slice_max[r])) for r in top]
+
+
+def scan_candidates(cdat: np.ndarray, freqs: np.ndarray, scan_depth: int,
+                    dec: int = 1) -> List[Candidate]:
+    """Top-8 candidates per (freq, pattern) (see slice_candidates)."""
     out: List[Candidate] = []
     for fi, f0 in enumerate(freqs):
         for p in range(scan_depth):
-            xb = scan_xb(cdat, f0, p)
-            padded = np.concatenate([xb, xb[: C.SCAN_PAD_LEN - C.WINDOW_LEN]])
-            sl = padded.reshape(C.NUM_SCAN_SLICES, C.SCAN_SLICE)
-            slice_arg = sl.argmax(axis=1)
-            slice_max = sl[np.arange(C.NUM_SCAN_SLICES), slice_arg]
-            top = np.argsort(-slice_max, kind="stable")[: C.NUM_CANDIDATES_PER_PATTERN]
-            for rank in top:
-                pos = (int(rank) * C.SCAN_SLICE + int(slice_arg[rank])) % C.WINDOW_LEN
+            for pos, xb in slice_candidates(scan_xb(cdat, f0, p), dec):
                 out.append(
                     Candidate(
                         freq_idx=fi,
                         pattern_idx=p,
                         pos=pos,
-                        xb=float(slice_max[rank]),
+                        xb=xb,
                         f0=float(f0),
                         num_avg=int(C.PATTERN_NUM_AVG[p]),
                     )

@@ -1,11 +1,11 @@
 """Masked batched LDPC(128,90) belief propagation + CRC gate.
 
-TPU-native redesign of the reference BP kernel
-(/root/reference/src/ldpc_kernel.cuh:100-248). The reference sizes its grid
-dynamically from a stream-compacted survivor count (src/index_kernel.cuh);
-XLA wants static shapes, so we decode a fixed top-K survivor batch with a
-validity mask — the 128-bit codeword axis maps exactly onto the TPU's
-128-lane registers, candidates batch on sublanes.
+Plain-XLA redesign of the reference BP kernel
+(/root/reference/src/ldpc_kernel.cuh:100-248), and the reference that the
+fused CUDA-device kernel (ops/bp_kernel.py) is checked against. The
+reference sizes its grid dynamically from a stream-compacted survivor count
+(src/index_kernel.cuh); XLA wants static shapes, so we decode a fixed top-K
+survivor batch with a validity mask.
 
 Faithful semantics per iteration (checked before message updates, iteration 0
 = raw hard decision, like the reference):
@@ -17,20 +17,13 @@ Faithful semantics per iteration (checked before message updates, iteration 0
                then tov = 2 * platanh(-prod)
 platanh is the reference's 5-segment piecewise-linear atanh.
 
-Layout notes (v5e): every array stays in a flat lane layout — edges as
-(K, 418) with the 11 slots of a check on consecutive lanes. The earlier
-(K, 38, 11) / (K, 128, 3) forms padded their last axis to 128 lanes (>90%
-of every vreg idle) and serialized the leave-one-out products; the
-leave-one-out runs in the LOG DOMAIN (_loo_log_domain: per-check group sums
-of log2|tanh| and the broadcast back both as one-hot matmuls, exp2 of
-sum-minus-own, negative-count parity for the sign — a round-3 rewrite of
-the earlier masked doubling scans, whose 10 roll+mask+mul steps per
-iteration were 60% of BP's VPU time). Check->bit messages (tov) live
-NATIVELY in edge layout (toc = zn_e - tov_e is elementwise); the bit-message
-sums ride one summing matmul per bf16 split part. All selections are
-matmuls with constant 0/1 matrices — exact-copy sums in contraction order —
-because TPU gathers run on the scalar core and dominated BP runtime
-(~240 ms per 2048 candidates measured on v5e) before this formulation.
+Layout: every array is flat — edges as (K, 418), the 11 slots of a check
+consecutive. Check->bit messages (tov) live natively in edge layout (toc =
+zn_e - tov_e is elementwise); the leave-one-out runs in the LOG DOMAIN
+(_loo_log_domain: per-check group sums of log2|tanh| and their broadcast
+back as one-hot matmuls, exp2 of sum-minus-own, negative-count parity for
+the sign). The bit->edge copy of zn is plain indexing; the sums over a
+bit's or a check's edges are matmuls with constant 0/1 matrices.
 
 A decoded candidate's result freezes at its first success (early-exit
 equivalent); BP keeps running for the rest of the batch.
@@ -49,11 +42,13 @@ from .. import constants as C
 from ..protocol import crc as crc_mod
 from ..protocol import ldpc_tables as T
 
-# One-hot selection matmuls are BIT-EXACT at Precision.HIGH (bf16_3x): the
-# 3-way bf16 split of an f32 is an exact 24=3x8-bit mantissa decomposition,
-# each output column copies exactly one input, and the f32 accumulator
-# reconstructs it. HIGH measured ~190 TFLOP/s effective on v5e vs ~34 for
-# HIGHEST -- same results, ~5x faster.
+# Every matmul here multiplies a 0/1 matrix by bf16-valued operands (the
+# split3_xla parts, 0/1 bits, small integer counts), so each product is
+# exact at Precision.HIGH: TF32 (10 explicit mantissa bits) on a CUDA
+# device, full float32 on the CPU; the float32 accumulator then adds the
+# few nonzero terms. A full-mantissa
+# float32 operand would be rounded to TF32 on a CUDA device, so the one
+# full-mantissa selection (zn -> edges) is plain indexing instead.
 _EXACT_SEL = jax.lax.Precision.HIGH
 
 _NE = T.N_CHECKS * T.MAX_ROW_DEGREE  # 418 edges (padded to 11 per check)
@@ -61,19 +56,17 @@ _NE = T.N_CHECKS * T.MAX_ROW_DEGREE  # 418 edges (padded to 11 per check)
 
 @functools.lru_cache(maxsize=None)
 def _tables() -> dict:
-    """Edge-incidence tables as one-hot selection matrices (flat layouts).
+    """Edge-incidence tables (flat layouts, edge e = 11r + j).
 
-      SEL_BIT   (128, 418)    zn -> per-edge zn            (edge e = 11r + j)
-      SEL_SLOT  (3, 418, 128) slot-k edge -> its bit (pure one-hot copies;
-                              summing the three keeps the original slot order)
+      EDGE_BIT  (418,) int32  bit of each edge (padded edges: bit 0, masked
+                              by edge_valid downstream)
+      SEL_SUM   (418, 128)    sum of a bit's <= 3 edges (0/1)
       COUNT_M   (128, 38)     bit-in-check incidence (parity row sums)
-    Invalid (padded) edges select nothing (all-zero column).
     """
     NM = T.NM  # (38, 11) bit index per (check, slot), -1 pad
     MN = T.MN  # (128, 3) -> (check, slot)
     edge_valid = NM >= 0
-    SEL_BIT = np.zeros((128, _NE), dtype=np.float32)
-    SEL_SLOT = np.zeros((3, _NE, 128), dtype=np.float32)
+    SEL_SUM = np.zeros((_NE, 128), dtype=np.float32)
     COUNT_M = np.zeros((128, T.N_CHECKS), dtype=np.float32)
     for r in range(T.N_CHECKS):
         for j in range(T.MAX_ROW_DEGREE):
@@ -81,10 +74,10 @@ def _tables() -> dict:
             if b < 0:
                 continue
             e = r * T.MAX_ROW_DEGREE + j
-            SEL_BIT[b, e] = 1.0
             COUNT_M[b, r] = 1.0
-            (k,) = [k for k in range(3) if MN[b, k, 0] == r and MN[b, k, 1] == j]
-            SEL_SLOT[k, e, b] = 1.0
+            assert any(MN[b, k, 0] == r and MN[b, k, 1] == j
+                       for k in range(3))
+            SEL_SUM[e, b] = 1.0
     # group-sum / group-broadcast one-hots for the log-domain leave-one-out
     # (GRP columns 0..37 sum a check row's edges; BACK fans a per-check
     # value back to its edges; padded edges/checks select nothing)
@@ -94,16 +87,10 @@ def _tables() -> dict:
         r = e // T.MAX_ROW_DEGREE
         GRP[e, r] = 1.0
         BACK[r, e] = 1.0
-    # NOTE: a fused GRPSUM = GRP @ BACK (418x418 same-check block-diagonal)
-    # was tried in round 4 to halve the matmul count here — it LOST on v5e
-    # in both precision modes (fast 0.045 -> 0.062, exact 0.069 -> 0.088
-    # ms/win at B=16): BP is MXU-FLOP-bound and the (512, 512)-padded fused
-    # operand costs 2x the FLOPs of the (512, 128) two-step pair.
     return {
         "edge_valid_f": edge_valid.astype(np.float32).reshape(_NE),
-        "SEL_BIT": SEL_BIT,
-        "SEL_SLOT": SEL_SLOT,
-        "SEL_SUM": SEL_SLOT.sum(axis=0),  # (418, 128): <=3 ones per column
+        "EDGE_BIT": np.maximum(NM, 0).reshape(_NE).astype(np.int32),
+        "SEL_SUM": SEL_SUM,
         "GRP": GRP,
         "BACK": BACK,
         "COUNT_M": COUNT_M,
@@ -115,7 +102,7 @@ def split3_xla(x):
     """Exact 3-way bf16-valued f32 split (x == h + m + l, 3x8 mantissa bits)
     built on lax.reduce_precision — the astype(bf16).astype(f32) idiom is
     folded to identity under --xla_allow_excess_precision, which would
-    silently zero the low parts (see pallas_scan._split2_xla)."""
+    silently zero the low parts."""
     h = jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=7)
     r1 = x - h
     m = jax.lax.reduce_precision(r1, exponent_bits=8, mantissa_bits=7)
@@ -150,13 +137,11 @@ _LOG_FLOOR = 2.0 ** -80  # |tanh| clamp before log2: a zero message (toc==0)
 
 
 def _loo_log_domain(t, GRP, BACK, edge_valid_f):
-    """Leave-one-out products of the 11-lane check groups via log-domain
+    """Leave-one-out products of the 11-slot check groups via log-domain
     group sums: |loo| = exp2(sum_group log2|t| - log2|t_own|), sign = parity
-    of the group's negative count excluding own. Replaces the masked
-    doubling scans (10 roll+mask+mul steps per iteration — 60% of BP's VPU
-    time on v5e) with 4 one-hot matmuls + log2/exp2; the group-sum matmuls
-    are exact-copy sums (split-3 data side, 0/1 one-hots), so jnp/kernel
-    bit-identity holds. Values differ from the product form by log/exp
+    of the group's negative count excluding own: 4 one-hot matmuls (exact
+    products: split-3 data side, 0/1 one-hots) + log2/exp2 instead of a
+    serial product per edge. Values differ from the product form by log/exp
     rounding (~1e-6 relative) — far below platanh's own approximation."""
     lt = jnp.log2(jnp.maximum(jnp.abs(t), _LOG_FLOOR))
     h, m, l = split3_xla(lt)
@@ -176,6 +161,12 @@ def _loo_log_domain(t, GRP, BACK, edge_valid_f):
     return (1.0 - 2.0 * odd) * mag
 
 
+def bit_to_edges(zn: jnp.ndarray) -> jnp.ndarray:
+    """(K, 128) per-bit values -> (K, 418) per-edge copies (padded edges
+    read bit 0; callers mask them with edge_valid)."""
+    return zn[:, jnp.asarray(_tables()["EDGE_BIT"])]
+
+
 class BPResult(NamedTuple):
     found: jnp.ndarray  # (K,) bool
     codeword: jnp.ndarray  # (K, 128) int8
@@ -187,7 +178,6 @@ def bp_decode(llr: jnp.ndarray, valid: jnp.ndarray, max_iters: int = C.NUM_BP_IT
     """Batched BP decode. llr: (K, 128) float32; valid: (K,) bool mask."""
     tbl = _tables()
     edge_valid_f = jnp.asarray(tbl["edge_valid_f"])  # (418,) {0,1}
-    SEL_BIT = jnp.asarray(tbl["SEL_BIT"])  # (128, 418)
     SEL_SUM = jnp.asarray(tbl["SEL_SUM"])  # (418, 128)
     GRP = jnp.asarray(tbl["GRP"])  # (418, 128)
     BACK = jnp.asarray(tbl["BACK"])  # (128, 418)
@@ -212,14 +202,10 @@ def bp_decode(llr: jnp.ndarray, valid: jnp.ndarray, max_iters: int = C.NUM_BP_IT
 
     def body(it, state):
         tov_e, found, cw_s, iter_s, nerr_s = state  # tov_e (K, 418) edges
-        # per-bit sum of the <=3 incident check messages via ONE summing
-        # matmul per bf16 split part (3 matmuls, was 9 as slot-separated
-        # exact copies). Exactness shape: each part's products are exact
+        # per-bit sum of the <=3 incident check messages via one summing
+        # matmul per bf16 split part: each part's products are exact
         # (bf16-valued f32 x 0/1) and the f32 accumulator adds the <=3
-        # nonzero terms in contraction order — the SAME order the Pallas
-        # kernel's MXU accumulates, so kernel/jnp bit-identity holds; the
-        # split-part grouping (h-sum + m-sum + l-sum) replaces the old
-        # slot-order grouping, an ulp-level reassociation.
+        # nonzero terms.
         th, tm, tl = split3_xla(tov_e)
         zn = llr
         for part in (th, tm, tl):
@@ -231,8 +217,8 @@ def bp_decode(llr: jnp.ndarray, valid: jnp.ndarray, max_iters: int = C.NUM_BP_IT
         nerr_s = jnp.where(newly, nerr, nerr_s)
         found = found | newly
 
-        # bit -> check: one-hot selection matmul; tov is already per-edge
-        zn_e = jnp.matmul(zn, SEL_BIT, precision=_EXACT_SEL)  # (K, 418)
+        # bit -> check: plain indexing (exact); tov is already per-edge
+        zn_e = bit_to_edges(zn)  # (K, 418)
         toc = zn_e - tov_e
         t = jnp.where(edge_valid_f != 0.0, jnp.tanh(-0.5 * toc), 1.0)
         loo = _loo_log_domain(t, GRP, BACK, edge_valid_f)

@@ -1,7 +1,7 @@
 """End-to-end jitted decode pipeline for one (or a batch of) 5184-sample
 windows: preprocessing -> scan -> demod -> survivor selection -> LDPC -> CRC.
 
-This is the TPU counterpart of the reference's do_decode driver
+This is the counterpart of the reference's do_decode driver
 (/root/reference/src/main.cu:428-532) plus its four kernel launches, fused
 under one jax.jit with static shapes throughout. The reference's dynamic
 survivor compaction (index_kernel) becomes a top-K selection keyed on
@@ -22,8 +22,7 @@ import numpy as np
 
 from .. import constants as C
 from ..config import DecoderConfig
-from . import analytic, ldpc, scan, softbits
-from .tables import FreqTables
+from . import analytic, bp_kernel, ldpc, scan, softbits
 
 _N = C.WINDOW_LEN
 
@@ -37,8 +36,8 @@ class WindowDecodeResult(NamedTuple):
     message_bits: jnp.ndarray  # (K, 10) uint8: the 77 payload bits PACKED
     # in np.packbits order (bit i of the payload = bit 7-i%8 of byte i//8;
     # unpack with pipeline.unpack_message_bits). Packed on device: this
-    # field is 74% of the result struct's bytes, and the result fetch rides
-    # the host link every window (main analog: result_keeper.cuh:123-130).
+    # field is 74% of the result struct's bytes, and the result is fetched
+    # to the host every window (main analog: result_keeper.cuh:123-130).
     nbadsync: jnp.ndarray  # (K,) int32
     xb: jnp.ndarray  # (K,) float32
     pos: jnp.ndarray  # (K,) int32
@@ -107,33 +106,24 @@ def select_survivors(nbad_f: jnp.ndarray, xb_f: jnp.ndarray, k: int) -> jnp.ndar
     return sorted_idx[:k]
 
 
-_PREFILTER_BLK = 128  # survivor-demod kernel block (pallas_survivor.sb_blk)
-
-
-def resolve_prefilter(cfg: DecoderConfig, nc: int, use_pallas: bool) -> int:
-    """Effective xb-prefilter size: 0 = full demod. Auto (None) enables it
-    on the Pallas path at 2x max_survivors (measured on v5e: 1.02 ms/win vs
-    1.37 at 4x and 1.85 full — tools/_surv_probe.py); any explicit value is
-    rounded up to the kernel block and disabled when it would not shrink the
-    work."""
+def resolve_prefilter(cfg: DecoderConfig, nc: int) -> int:
+    """Effective xb-prefilter size: 0 = full demod. Auto (None) is 2x
+    max_survivors on every backend — the setting the busy-band battery
+    validates (tests/test_busyband.py); any value that would not shrink the
+    nc-candidate demod disables it."""
     p = cfg.survivor_prefilter
     if p is None:
-        p = 2 * cfg.max_survivors if use_pallas else 0
-    if p <= 0:
-        return 0
-    p = -(-p // _PREFILTER_BLK) * _PREFILTER_BLK
-    return 0 if p >= nc else p
+        p = 2 * cfg.max_survivors
+    return 0 if p <= 0 or p >= nc else p
 
 
-def take_rows_exact(data: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Row gather data[idx] as a one-hot matmul — exact (each output row is
-    a pure copy reconstructed from the 3x-bf16 mantissa split at
-    Precision.HIGH) and MXU-resident, unlike XLA's scalar-core TPU gather
-    lowering (measured ~250x slower for the BP tables; same story here)."""
-    n = data.shape[0]
-    oh = (idx[:, None] == jax.lax.broadcasted_iota(
-        jnp.int32, (idx.shape[0], n), 1)).astype(jnp.float32)
-    return jnp.matmul(oh, data, precision=jax.lax.Precision.HIGH)
+def prefilter_per_cell(cfg: DecoderConfig, cells: int, pre: int) -> int:
+    """The per-cell cap, raised until the capped grid still offers >= pre
+    candidates to choose from."""
+    per_cell = cfg.prefilter_per_cell
+    while per_cell < cfg.candidates_per_pattern and cells * per_cell < pre:
+        per_cell += 1
+    return per_cell
 
 
 def prefilter_select(xb: jnp.ndarray, pos: jnp.ndarray, pre: int,
@@ -165,9 +155,8 @@ def prefilter_select(xb: jnp.ndarray, pos: jnp.ndarray, pre: int,
     if chan_valid is not None:
         xb = jnp.where(chan_valid[:, None, None], xb, 0.0)
     cells = F * P
-    # both scan implementations emit the S slots of a cell in descending xb
-    # order (repeated max+mask in pallas_scan.select, lax.top_k in ops/scan),
-    # so the per-cell top-k is a slice, not a top_k
+    # the scan emits the S slots of a cell in descending xb order
+    # (lax.top_k in ops/scan), so the per-cell top-k is a slice, not a top_k
     xb2 = xb.reshape(cells, S)[:, :per_cell]
     pos2 = pos.reshape(cells, S)[:, :per_cell]
     # pack (flat candidate index, pos) into one int32 carrier so the
@@ -179,13 +168,10 @@ def prefilter_select(xb: jnp.ndarray, pos: jnp.ndarray, pre: int,
     xb_p = xb2.reshape(F, P, per_cell).transpose(1, 0, 2).reshape(P, -1)
     meta_p = meta2.reshape(F, P, per_cell).transpose(1, 0, 2).reshape(P, -1)
     quota = split_quota(pre, P)
-    # per-pattern top-quota via ONE two-operand sort carrying meta along:
-    # top_k returns indices whose meta load is a 512-of-6012 gather — XLA's
-    # TPU gather lowering runs on the scalar core and was the prefilter's
-    # dominant cost (~0.012 of ~0.013 ms/win, tools/_stage_time_r5.py); a
-    # (pre, cells) one-hot matmul costs the same in compare passes. The
-    # stable sort keeps argmax-first tie order and the per-pattern quota
-    # reads are static row slices.
+    # per-pattern top-quota via ONE two-operand sort carrying meta along
+    # (no index gather after the selection). The stable sort keeps
+    # argmax-first tie order and the per-pattern quota reads are static row
+    # slices.
     xb_neg, meta_sorted = jax.lax.sort((-xb_p, meta_p), dimension=1,
                                        num_keys=1)
     xb_sel = jnp.concatenate([-xb_neg[p, : quota[p]] for p in range(P)])
@@ -203,15 +189,15 @@ def prefilter_select(xb: jnp.ndarray, pos: jnp.ndarray, pre: int,
 _XB_LO = 2.0 ** -4
 _XB_HI = float(np.float32(2.0 ** 20) * (1.0 - 2.0 ** -24))
 # fast path needs (threshold + 2) * 24 exponent doublings below 2^-4 to stay
-# in normal f32 range (TPU flushes subnormals): threshold <= 4.
+# in normal f32 range (accelerators may flush subnormals): threshold <= 4.
 TOPK_MAX_THRESHOLD = 4
 
 
 def select_survivors_topk(nbad_f: jnp.ndarray, xb_f: jnp.ndarray, k: int,
                           threshold: int,
                           mask: jnp.ndarray | None = None) -> jnp.ndarray:
-    """Fast exact survivor selection via one f32 top_k (~9x cheaper than the
-    full 24k-candidate sort on v5e).
+    """Fast exact survivor selection via one f32 top_k instead of a full
+    two-key sort over every candidate.
 
     Key = clamp(xb, 2^-4, 2^20) * 2^(-24 * min(nbad, threshold+1)): the
     exponent shift is exact (power-of-two multiply, no underflow for
@@ -257,11 +243,11 @@ def select_survivors_quota(nbad_f: jnp.ndarray, xb_f: jnp.ndarray, k: int,
     quotas: list of (quota, segment) where segment is either a slice
     (pattern-major contiguous run) or a boolean mask over the flat axis.
     Slice segments are small (~pre/P rows), so they use the provably ordered
-    two-key sort — after a fused-graph top_k was observed returning rank
-    order on v5e (see the result-compaction note below), correctness-critical
+    two-key sort — after a fused-graph top_k was once observed returning
+    rank order (see the result-compaction note below), correctness-critical
     ordering avoids top_k where a sort is affordable. Mask segments span the
-    full candidate axis (non-prefilter path), where the sort would cost
-    ~10x; the packed-key top_k stays there.
+    full candidate axis (non-prefilter path), where the sort over every
+    candidate is the expensive form; the packed-key top_k stays there.
     """
     parts = []
     for q, seg in quotas:
@@ -279,20 +265,10 @@ def split_quota(total: int, parts: int) -> list[int]:
             for p in range(parts)]
 
 
-def resolve_use_pallas(cfg: DecoderConfig) -> bool:
-    """Effective use_pallas: auto (None) = fused kernels on TPU (validated
-    on v5e hardware — exact demod parity, scan candidate-set parity; ~250x
-    faster than XLA's scalar-core gather lowering); pure-jnp elsewhere."""
-    if cfg.use_pallas is None:
-        return jax.default_backend() == "tpu"
-    return cfg.use_pallas
-
-
 class PreparedWindow(NamedTuple):
     """Per-window state between survivor selection and the BP stage (the
-    split point lets decode_raw flat-batch BP across the window batch: the
-    BP kernel is op-dispatch-bound, so B windows in one call cost ~1/B the
-    per-window overhead of a vmap'd call)."""
+    split point lets decode_windows run BP once on the flat batch of every
+    window's survivors)."""
 
     llr: jnp.ndarray  # (K, 128) f32
     valid: jnp.ndarray  # (K,) bool
@@ -305,8 +281,7 @@ class PreparedWindow(NamedTuple):
 
 
 def prepare_window(c: jnp.ndarray, freqs, cfg: DecoderConfig,
-                   chan_valid: jnp.ndarray | None = None,
-                   scanned=None, front=None, demod=None) -> PreparedWindow:
+                   chan_valid: jnp.ndarray | None = None) -> PreparedWindow:
     """One analytic window (5184,) complex64 -> top-K survivor LLRs + meta
     (everything before the LDPC stage).
 
@@ -320,93 +295,37 @@ def prepare_window(c: jnp.ndarray, freqs, cfg: DecoderConfig,
     make F divisible by the mesh; those channels must not compete for
     survivor slots or report f0 outside the requested search width).
     """
-    use_pallas = resolve_use_pallas(cfg)
-    if scanned is not None:
-        # decode_raw computed the scan outside (batched); see decode_raw
-        pos, xb = scanned
-    elif use_pallas:
-        # Fused TPU kernel: scan never materializes the (P, N, F) metric
-        # field.
-        from . import pallas_scan
-
-        pos, xb = pallas_scan.scan_pallas(c, freqs, cfg.scan_depth,
-                                          fast_math=cfg.fast_math,
-                                          num_cand=cfg.candidates_per_pattern,
-                                          dec=cfg.scan_decimation)
-    else:
+    with jax.named_scope("scan"):
         pos, xb = scan.scan(c, freqs, cfg.scan_depth,
                             num_cand=cfg.candidates_per_pattern,
                             dec=cfg.scan_decimation)  # (F, P, k)
-
-    nc = pos.shape[0] * pos.shape[1] * pos.shape[2]
-    pre = resolve_prefilter(cfg, nc, use_pallas)
+    F, P, S = pos.shape
+    nc = F * P * S
+    pre = resolve_prefilter(cfg, nc)
 
     if pre:
-        # xb-prefilter: demodulate only the top `pre` candidates by scan xb
-        # (see ops/pallas_survivor.py). Masked channels rank last and get
-        # nbadsync 17 after demod, as on the full path.
-        from . import pallas_survivor
-
-        # per-cell cap only when it actually shrinks the global top_k and
-        # still leaves >= pre candidates to choose from
-        cells = pos.shape[0] * pos.shape[1]
-        per_cell = cfg.prefilter_per_cell
-        while per_cell < pos.shape[2] and cells * per_cell < pre:
-            per_cell += 1
-        if front is not None:
-            xb_f, pos_f, f_idx, p_idx, pre_idx = front
-        else:
-            # always the pattern-quota'd selection, even at per_cell = 8
-            # (no cell cap): a single global top-`pre` by xb would flood
-            # with high-num_avg candidates and starve the pattern-0 rows
-            # the reference prints (tests/test_busyband.py exercises this)
-            xb_f, pos_f, f_idx, p_idx, pre_idx = prefilter_select(
-                xb, pos, pre, per_cell, chan_valid)
-        pattern_major = True  # per-pattern quota runs, contiguous
-        if demod is not None:
-            # decode_raw ran the window-batched tiered demod outside
-            sb_f, nbad_f = demod
-        elif use_pallas:
-            # tiered demod: one kernel call per pattern segment, paying only
-            # for that pattern's active frames (the average pattern mix has
-            # ~42% zero-mask rows under the flat 6-frame layout)
-            seg_sizes = split_quota(pre, pos.shape[1])
-            offs = np.cumsum([0] + seg_sizes)
-            sb_parts, nbad_parts = [], []
-            for p in range(pos.shape[1]):
-                tl = tuple(int(x) for x in np.nonzero(C.PATTERN_MASKS[p])[0])
-                sl = slice(int(offs[p]), int(offs[p + 1]))
-                n = seg_sizes[p]
-                npad = -n % 8
-
-                def padz(a):
-                    return jnp.pad(a[sl], (0, npad))
-
-                sbp, nbp = pallas_survivor.demod_survivors(
-                    c, freqs, padz(pos_f), padz(f_idx), padz(p_idx),
-                    fast_math=cfg.fast_math, sb_blk=n + npad, terms=tl)
-                sb_parts.append(sbp[:n])
-                nbad_parts.append(nbp[:n])
-            sb_f = jnp.concatenate(sb_parts)
-            nbad_f = jnp.concatenate(nbad_parts)
-        else:
-            sb_f, nbad_f = pallas_survivor.demod_survivors_ref(
-                c, freqs, pos_f, f_idx, p_idx)
+        # xb-prefilter: demodulate only the top `pre` candidates by scan xb.
+        # Always the pattern-quota'd selection, even at per_cell = 8 (no
+        # cell cap): a single global top-`pre` by xb would flood with
+        # high-num_avg candidates and starve the pattern-0 rows the
+        # reference prints (tests/test_busyband.py exercises this). Masked
+        # channels rank last and get nbadsync 17 after demod, as on the
+        # full path.
+        with jax.named_scope("prefilter"):
+            xb_f, pos_f, f_idx, p_idx, idx_map = prefilter_select(
+                xb, pos, pre, prefilter_per_cell(cfg, F * P, pre),
+                chan_valid)
+        with jax.named_scope("demod"):
+            sb_f, nbad_f = softbits.demod_survivors(c, freqs, pos_f, f_idx,
+                                                    p_idx)
         if chan_valid is not None:
             nbad_f = jnp.where(chan_valid[f_idx], nbad_f, 17)
-        idx_map = pre_idx  # local survivor index -> flat candidate index
         nc_sel = pre
+        pattern_major = True  # per-pattern quota runs, contiguous
     else:
-        if use_pallas:
-            # mix-down AND pattern averaging both happen inside the demod
-            # kernel; neither field ever touches HBM
-            from . import pallas_demod
-
-            sb, nbad = pallas_demod.demod_pallas(c, freqs, pos,
-                                                 fast_math=cfg.fast_math)
-        else:
-            sb, nbad = softbits.demod_candidates(c, freqs, cfg.scan_depth, pos)
-
+        with jax.named_scope("demod"):
+            sb, nbad = softbits.demod_candidates(c, freqs, cfg.scan_depth,
+                                                 pos)
         if chan_valid is not None:
             # masked channels: nbadsync above any threshold, xb zeroed — they
             # can neither become survivors nor outrank real diagnostics rows
@@ -416,14 +335,29 @@ def prepare_window(c: jnp.ndarray, freqs, cfg: DecoderConfig,
         nbad_f = nbad.reshape(nc)
         pos_f = pos.reshape(nc)
         sb_f = sb.reshape(nc, 128)
-        idx_map = None
+        idx_map = jnp.arange(nc, dtype=jnp.int32)
         nc_sel = nc
         pattern_major = False
-        per_f = pos.shape[1] * pos.shape[2]
-        p_idx = jnp.arange(nc, dtype=jnp.int32) % per_f // pos.shape[2]
+        p_idx = idx_map % (P * S) // S
 
+    with jax.named_scope("select"):
+        top_idx = _select_top(cfg, nbad_f, xb_f, nc_sel, P, pattern_major,
+                              p_idx)
+        nbad_k = nbad_f[top_idx]
+        return PreparedWindow(
+            llr=sb_f[top_idx], valid=nbad_k <= cfg.nbadsync_threshold,
+            nbad_k=nbad_k, xb_k=xb_f[top_idx], pos_k=pos_f[top_idx],
+            cand_k=idx_map[top_idx],
+            num_survivors=(nbad_f <= cfg.nbadsync_threshold).sum().astype(
+                jnp.int32),
+            block_power=block_powers(c))
+
+
+def _select_top(cfg: DecoderConfig, nbad_f, xb_f, nc_sel: int, P: int,
+                pattern_major: bool, p_idx) -> jnp.ndarray:
+    """Survivor indices into the (nc_sel,) candidate rows: per-pattern
+    quotas where K covers every pattern, else one exact ranking."""
     k = min(cfg.max_survivors, nc_sel)
-    P = pos.shape[1]
     if cfg.nbadsync_threshold <= TOPK_MAX_THRESHOLD:
         if k >= P > 1:
             # per-pattern slot quotas (see select_survivors_quota)
@@ -442,55 +376,24 @@ def prepare_window(c: jnp.ndarray, freqs, cfg: DecoderConfig,
                                             cfg.nbadsync_threshold)
     else:
         top_idx = select_survivors(nbad_f, xb_f, k)
-    cand_all = idx_map if idx_map is not None else jnp.arange(
-        nc_sel, dtype=jnp.int32)
-    if use_pallas:
-        # single one-hot matmul selects softbits + all metadata columns
-        # (exact copies; XLA's TPU gather lowering runs on the scalar core)
-        meta = jnp.stack([nbad_f.astype(jnp.float32), xb_f,
-                          pos_f.astype(jnp.float32),
-                          cand_all.astype(jnp.float32)], axis=1)
-        rows = take_rows_exact(jnp.concatenate([sb_f, meta], axis=1), top_idx)
-        llr = rows[:, :128]
-        nbad_k = rows[:, 128].astype(jnp.int32)
-        xb_k = rows[:, 129]
-        pos_k = rows[:, 130].astype(jnp.int32)
-        cand_k = rows[:, 131].astype(jnp.int32)
-    else:
-        llr = sb_f[top_idx]
-        nbad_k = nbad_f[top_idx]
-        xb_k = xb_f[top_idx]
-        pos_k = pos_f[top_idx]
-        cand_k = cand_all[top_idx]
-    valid = nbad_k <= cfg.nbadsync_threshold
-    return PreparedWindow(
-        llr=llr, valid=valid, nbad_k=nbad_k, xb_k=xb_k, pos_k=pos_k,
-        cand_k=cand_k,
-        num_survivors=(nbad_f <= cfg.nbadsync_threshold).sum().astype(jnp.int32),
-        block_power=block_powers(c))
+    return top_idx
 
 
-def bp_stage(llr: jnp.ndarray, valid: jnp.ndarray, cfg: DecoderConfig):
+def bp_stage(llr: jnp.ndarray, valid: jnp.ndarray) -> ldpc.BPResult:
     """LDPC BP + CRC on a flat survivor batch (any number of windows' K-rows
-    stacked — rows are independent). Fused Pallas kernel on TPU: the whole
-    10-iteration loop stays in VMEM; XLA's batched lowering round-trips
-    every leave-one-out intermediate through HBM (tools/_bp_bakeoff.py)."""
-    if resolve_use_pallas(cfg):
-        from . import pallas_ldpc
-
-        return pallas_ldpc.bp_decode_pallas(llr, valid,
-                                            fast_math=cfg.fast_math)
-    return ldpc.bp_decode(llr, valid)
+    stacked — rows are independent). Compiled for a CUDA device this is the
+    fused Pallas/Triton kernel (ops/bp_kernel.py: the whole 10-iteration
+    loop stays on chip); compiled for any other platform it is the plain
+    reference ldpc.bp_decode. The choice is made per lowering platform, so
+    one traced program serves both."""
+    return jax.lax.platform_dependent(
+        llr, valid, cuda=bp_kernel.bp_decode, default=ldpc.bp_decode)
 
 
 def finish_window(prep: PreparedWindow, bp, cfg: DecoderConfig
                   ) -> WindowDecodeResult:
     """Result compaction for one window from its prepared state + BP output."""
-    use_pallas = resolve_use_pallas(cfg)
-    llr = prep.llr
-    valid = prep.valid
-    nbad_k, xb_k, pos_k, cand_k = prep.nbad_k, prep.xb_k, prep.pos_k, prep.cand_k
-    k = llr.shape[0]
+    k = prep.llr.shape[0]
 
     # Device-side result compaction: keep only max_results slots, decodes
     # first (then best remaining survivors for diagnostics). The reference
@@ -498,48 +401,23 @@ def finish_window(prep: PreparedWindow, bp, cfg: DecoderConfig
     # (result_keeper.cuh:123-130); we ship ~R rows instead of K.
     # top_idx is already in selection order, so rank position = arange(k);
     # the two-key sort puts decodes first, rank-ordered within each group.
-    # (A found*2^20 - rank int32 top_k formulation returned RANK order — not
-    # key order — inside the fused TPU graph, silently dropping decodes past
-    # max_results, while behaving correctly in a standalone test. Root cause
-    # unclear (suspected XLA top_k-on-int32 lowering interaction); the sort
-    # is ~1 us/win and provably ordered, so it stays.)
+    # (A found*2^20 - rank int32 top_k formulation was once observed to
+    # return RANK order — not key order — inside a fused graph, silently
+    # dropping decodes past max_results, while behaving correctly in a
+    # standalone test. The sort is provably ordered, so it stays.)
     r = min(cfg.max_results, k)
     _, sel = jax.lax.sort(
         ((~bp.found).astype(jnp.int32), jnp.arange(k, dtype=jnp.int32)),
         num_keys=2)
     sel = sel[:r]
-    if use_pallas:
-        cols = jnp.concatenate([
-            bp.codeword[:, :77].astype(jnp.float32),
-            jnp.stack([valid.astype(jnp.float32), bp.found.astype(jnp.float32),
-                       nbad_k.astype(jnp.float32), xb_k,
-                       pos_k.astype(jnp.float32), cand_k.astype(jnp.float32),
-                       bp.iterations.astype(jnp.float32),
-                       bp.hard_errors.astype(jnp.float32)], axis=1),
-        ], axis=1)  # (k, 85)
-        out = take_rows_exact(cols, sel)
-        return WindowDecodeResult(
-            cand_index=out[:, 82].astype(jnp.int32),
-            valid=out[:, 77] != 0.0,
-            found=out[:, 78] != 0.0,
-            message_bits=pack_message_bits(out[:, :77]),
-            nbadsync=out[:, 79].astype(jnp.int32),
-            xb=out[:, 80],
-            pos=out[:, 81].astype(jnp.int32),
-            ldpc_iterations=out[:, 83].astype(jnp.int32),
-            hard_errors=out[:, 84].astype(jnp.int32),
-            num_survivors=prep.num_survivors,
-            shard_survivors=prep.num_survivors,
-            block_power=prep.block_power,
-        )
     return WindowDecodeResult(
-        cand_index=cand_k[sel],
-        valid=valid[sel],
+        cand_index=prep.cand_k[sel],
+        valid=prep.valid[sel],
         found=bp.found[sel],
         message_bits=pack_message_bits(bp.codeword[sel, :77]),
-        nbadsync=nbad_k[sel],
-        xb=xb_k[sel],
-        pos=pos_k[sel],
+        nbadsync=prep.nbad_k[sel],
+        xb=prep.xb_k[sel],
+        pos=prep.pos_k[sel],
         ldpc_iterations=bp.iterations[sel],
         hard_errors=bp.hard_errors[sel],
         num_survivors=prep.num_survivors,
@@ -554,7 +432,7 @@ def decode_window_tables(c: jnp.ndarray, freqs, cfg: DecoderConfig,
     """One analytic window -> fixed-shape decode results (prepare -> BP ->
     finish; see prepare_window for the freqs/chan_valid contract)."""
     prep = prepare_window(c, freqs, cfg, chan_valid)
-    bp = bp_stage(prep.llr, prep.valid, cfg)
+    bp = bp_stage(prep.llr, prep.valid)
     return finish_window(prep, bp, cfg)
 
 
@@ -563,109 +441,37 @@ def decode_window(c: jnp.ndarray, cfg: DecoderConfig) -> WindowDecodeResult:
     return decode_window_tables(c, tuple(float(f) for f in cfg.freqs), cfg)
 
 
-_DEMOD_WIN_BLK = 8  # windows per demod grid step (VMEM ~80 MB at seg 176)
-
-
-def _demod_tiered_batched(c, freqs, cfg, pos_f, f_idx, p_idx, P: int):
-    """Window-batched tiered survivor demod: c (B, N), pos_f/f_idx/p_idx
-    (B, pre) -> (sb (B, pre, 128), nbad (B, pre)). One kernel call per
-    pattern tier with _DEMOD_WIN_BLK windows per grid step (the kernel is
-    op-dispatch-bound; see pallas_survivor._survivor_kernel)."""
-    from . import pallas_survivor
-
-    B = c.shape[0]
-    pre = pos_f.shape[1]
-    seg_sizes = split_quota(pre, P)
-    offs = np.cumsum([0] + seg_sizes)
-    sb_parts, nbad_parts = [], []
-    for p in range(P):
-        tl = tuple(int(x) for x in np.nonzero(C.PATTERN_MASKS[p])[0])
-        sl = slice(int(offs[p]), int(offs[p + 1]))
-        n = seg_sizes[p]
-        npad = -n % 8
-        # windows per grid step, shrunk so the step's VMEM fits: the mix
-        # temporaries scale with T * win * seg rows and the double-buffered
-        # per-window sliding matrices with win (6.2 MB each)
-        win_blk = _DEMOD_WIN_BLK
-        while win_blk > 1 and (len(tl) * win_blk * (n + npad) > 4096
-                               or win_blk * (n + npad) > 704
-                               or B % win_blk):
-            win_blk //= 2
-
-        def padz(a):
-            return jnp.pad(a[:, sl], ((0, 0), (0, npad)))
-
-        sbp, nbp = pallas_survivor.demod_survivors(
-            c, freqs, padz(pos_f), padz(f_idx), padz(p_idx),
-            fast_math=cfg.fast_math, sb_blk=n + npad, terms=tl,
-            win_blk=win_blk)
-        sb_parts.append(sbp[:, :n])
-        nbad_parts.append(nbp[:, :n])
-    return (jnp.concatenate(sb_parts, axis=1),
-            jnp.concatenate(nbad_parts, axis=1))
-
-
 def decode_windows(c: jnp.ndarray, freqs, cfg: DecoderConfig,
                    chan_valid: jnp.ndarray | None = None
                    ) -> WindowDecodeResult:
     """Batched decode of preprocessed analytic windows (B, N) -> batched
     results — the throughput formulation shared by the single-device and
-    sharded paths.
-
-    The demod and BP kernels are op-dispatch-bound, so both run
-    WINDOW-BATCHED instead of vmap'd: the tiered demod stacks
-    _DEMOD_WIN_BLK windows per grid step, and BP runs once on the whole
-    batch's survivors (B*K rows, row-chunked onto the grid).
+    sharded paths: everything up to survivor selection is vmap'd per window,
+    then BP runs once on the whole batch's survivors (B*K rows).
 
     `freqs` is either a static tuple (single device: tables become jit
     constants) or a tables.FreqTables of arrays (shard_map: each device gets
     its frequency-axis slice — shapes below derive from the table arrays, so
     inside shard_map everything is sized to the LOCAL frequency slice).
     `chan_valid` masks sharding-pad channels; see prepare_window."""
-    F = freqs.W.shape[0] if isinstance(freqs, FreqTables) else len(freqs)
-    use_pallas = resolve_use_pallas(cfg)
-    nc = F * cfg.scan_depth * cfg.candidates_per_pattern
-    pre = resolve_prefilter(cfg, nc, use_pallas)
-    cells = F * cfg.scan_depth
-    per_cell = cfg.prefilter_per_cell
-    while per_cell < cfg.candidates_per_pattern and cells * per_cell < pre:
-        per_cell += 1
-    flagship = use_pallas and pre > 0
-
-    if flagship:
-        from . import pallas_scan
-
-        pos, xb = jax.vmap(lambda w: pallas_scan.scan_pallas(
-            w, freqs, cfg.scan_depth, fast_math=cfg.fast_math,
-            num_cand=cfg.candidates_per_pattern,
-            dec=cfg.scan_decimation))(c)
-        front = jax.vmap(lambda pw, xw: prefilter_select(
-            xw, pw, pre, per_cell, chan_valid))(pos, xb)
-        sb_f, nbad_f = _demod_tiered_batched(
-            c, freqs, cfg, front[1], front[2], front[3], cfg.scan_depth)
-        prep = jax.vmap(
-            lambda w, po, xo, fr0, fr1, fr2, fr3, fr4, sbw, nbw:
-            prepare_window(w, freqs, cfg, chan_valid=chan_valid,
-                           scanned=(po, xo),
-                           front=(fr0, fr1, fr2, fr3, fr4),
-                           demod=(sbw, nbw))
-        )(c, pos, xb, *front, sb_f, nbad_f)
-    else:
-        prep = jax.vmap(lambda w: prepare_window(
-            w, freqs, cfg, chan_valid=chan_valid))(c)
+    prep = jax.vmap(lambda w: prepare_window(
+        w, freqs, cfg, chan_valid=chan_valid))(c)
     b, k = prep.llr.shape[0], prep.llr.shape[1]
-    bp_flat = bp_stage(prep.llr.reshape(b * k, 128),
-                       prep.valid.reshape(b * k), cfg)
+    with jax.named_scope("bp"):
+        bp_flat = bp_stage(prep.llr.reshape(b * k, 128),
+                           prep.valid.reshape(b * k))
     bp = jax.tree_util.tree_map(
         lambda a: a.reshape((b, k) + a.shape[1:]), bp_flat)
-    return jax.vmap(lambda pr, bb: finish_window(pr, bb, cfg))(prep, bp)
+    with jax.named_scope("compact"):
+        return jax.vmap(lambda pr, bb: finish_window(pr, bb, cfg))(prep, bp)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def decode_raw(raw: jnp.ndarray, cfg: DecoderConfig) -> WindowDecodeResult:
     """Jitted: batch of raw windows (B, raw_len) -> batched results (see
     decode_windows; frequency tables are jit constants from cfg)."""
-    c = preprocess(raw, cfg)
+    with jax.named_scope("preprocess"):
+        c = preprocess(raw, cfg)
     return decode_windows(c, tuple(float(f) for f in cfg.freqs), cfg)
 
 

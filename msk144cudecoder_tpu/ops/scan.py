@@ -1,4 +1,4 @@
-"""Wideband sync scan as one MXU matmul + roll-combines.
+"""Wideband sync scan as one matmul + roll-combines.
 
 TPU-native redesign of the reference scan kernel
 (/root/reference/src/scan_kernel.cuh:27-366). The reference re-mixes the
@@ -20,10 +20,9 @@ with E_f(l) = exp(2j*pi*f*l/fs) and c~ the window extended by its own head
 chi_f = exp(-2j*pi*f*N/fs) because the reference mixes on wrapped indices —
 we add that correction exactly with a second tiny matmul).
 
-So the whole frequency scan is one (N,42) x (42,F) complex matmul (MXU), a
+So the whole frequency scan is one (N,42) x (42,F) complex matmul, a
 (41,42) x (42,F) boundary matmul, and 12 rolls+adds — ~40x less arithmetic
-than the reference's formulation at scan depth 6, and it lands on the MXU
-instead of scalar cores.
+than the reference's formulation at scan depth 6.
 
 Candidate selection mirrors the reference: best lag per 256-lag slice (21
 slices, the last wrapping past N), then top-8 slice maxima per (f, p)
@@ -115,11 +114,9 @@ def select_candidates(
     xb: (P, N, F) -> (pos, xb_top) each (F, P, k) with pos in [0, N).
 
     dec > 1 selects on the COARSE lag grid (every dec-th lag of each slice)
-    — the candidate semantics of the decimated Pallas kernel
     (config.scan_decimation): positions land on multiples of dec, at most
-    dec-1 samples off the full-resolution argmax. The jnp path still
-    computes the full field; only selection is coarse, so this path stays
-    the behavioral oracle for the kernel.
+    dec-1 samples off the full-resolution argmax. The full field is still
+    computed; only selection is coarse.
     """
     P = xb.shape[0]
     F = xb.shape[2]

@@ -1,12 +1,15 @@
 """Batched softbit demodulation for all scan candidates at once.
 
-TPU-native redesign of the reference softbits kernel
-(/root/reference/src/softbits_kernel.cuh:9-248). Instead of re-mixing the
-whole window per candidate (the reference launches freq x depth x 8 blocks,
-each repeating the mix), we mix once per frequency, build the
-pattern-averaged signal ZA_p = sum_m mask_p[m] * roll(z, -864m) once per
-(freq, pattern), and gather each candidate's 864-sample frame from it —
-ZA[(pos+t) mod N] equals the reference's per-candidate averaged frame.
+Redesign of the reference softbits kernel
+(/root/reference/src/softbits_kernel.cuh:9-248). For the full candidate
+grid (demod_candidates), instead of re-mixing the whole window per
+candidate (the reference launches freq x depth x 8 blocks, each repeating
+the mix), we mix once per frequency, build the pattern-averaged signal
+ZA_p = sum_m mask_p[m] * roll(z, -864m) once per (freq, pattern), and
+gather each candidate's 864-sample frame from it — ZA[(pos+t) mod N] equals
+the reference's per-candidate averaged frame. For a prefiltered survivor
+subset (demod_survivors) each frame is gathered straight from the window
+and the mix table, as the reference's per-candidate blocks do.
 
 Per candidate: carrier-phase estimate over both 42-sample sync regions,
 derotation, 12-sample half-sine matched filter producing 144 interleaved
@@ -49,16 +52,15 @@ def _sync_vec() -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _matched_filter_mats() -> tuple[np.ndarray, np.ndarray]:
-    """Constant tap matrices turning the matched filter into MXU matmuls.
+    """Constant tap matrices turning the matched filter into matmuls.
 
     WQ (864, 72): column q holds pp12 at rows (858 + 12q + i) mod 864 — the
     Q-rail integration windows (softbits_kernel.cuh:156-171 thread 0-71).
     WI (864, 72): column q holds pp12 at rows 12q + i — the I-rail windows
     (threads 72-143). sb_q = imag(d) @ WQ, sb_i = real(d) @ WI.
 
-    A (..., 72, 12) reshape + small einsum would tile the 12-wide axis up to
-    128 lanes on TPU (a ~10x HBM blowup that OOMs the deep scan at batch 16);
-    the (864, 72) matmul form keeps every axis well-tiled and lands on the MXU.
+    The (864, 72) matmul form keeps every axis wide, where a (..., 72, 12)
+    reshape + small einsum would leave a 12-wide minor axis.
     """
     WQ = np.zeros((C.FRAME_LEN, 72), dtype=np.float32)
     WI = np.zeros((C.FRAME_LEN, 72), dtype=np.float32)
@@ -133,3 +135,41 @@ def demod_candidates(
     za = pattern_average(z, scan_depth)
     frames = gather_frames(za, pos)
     return demod(frames)
+
+
+def survivor_frames(c: jnp.ndarray, freqs, pos: jnp.ndarray,
+                    f_idx: jnp.ndarray, p_idx: jnp.ndarray) -> jnp.ndarray:
+    """(S,) candidates given by (pos, frequency index, pattern index) ->
+    their pattern-averaged, mixed frames (S, 864).
+
+    frame[l] = sum_m mask_p[m] * c[t] * W[f, t],  t = (pos + 864 m + l) mod N
+
+    — the same products summed in the same frame order as
+    gather_frames(pattern_average(mix_all(c)), pos) (masked-off frames add
+    exact zeros). Each term reads one contiguous 864-sample run of the
+    window and of its frequency's mix-table row, both extended by their own
+    head so the run never wraps: a block gather per (survivor, frame)."""
+    W = jnp.asarray(_mix_table(freqs))  # (F, N)
+    L = C.FRAME_LEN
+    c_ext = jnp.concatenate([c, c[: L - 1]])
+    w_ext = jnp.concatenate([W, W[:, : L - 1]], axis=1)
+    masks = jnp.asarray(C.PATTERN_MASKS.astype(np.float32))[p_idx]  # (S, 6)
+
+    def run(f, start):
+        return (jax.lax.dynamic_slice(c_ext, (start,), (L,))
+                * jax.lax.dynamic_slice(w_ext, (f, start), (1, L))[0])
+
+    acc = None
+    for m in range(C.PATTERN_LEN):
+        z = jax.vmap(run)(f_idx, (pos + 864 * m) % _N)  # (S, 864)
+        z = jnp.where(masks[:, m:m + 1] != 0.0, z, 0.0)
+        acc = z if acc is None else acc + z
+    return acc
+
+
+def demod_survivors(c: jnp.ndarray, freqs, pos: jnp.ndarray,
+                    f_idx: jnp.ndarray, p_idx: jnp.ndarray
+                    ) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Demodulate a prefiltered candidate subset: (S,) int32 pos / f_idx /
+    p_idx -> (softbits (S, 128), nbadsync (S,))."""
+    return demod(survivor_frames(c, freqs, pos, f_idx, p_idx))

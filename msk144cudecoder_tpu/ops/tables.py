@@ -4,7 +4,7 @@ The reference bakes its frequency grid into kernel geometry (one CUDA block
 per channel, /root/reference/src/msk_context.cuh:95-135). Here the grid is
 data: four arrays indexed by the frequency axis F. Keeping them as arrays
 (rather than jit-constants keyed on a static freqs tuple) is what lets
-shard_map split the frequency axis across a TPU mesh — each device receives
+shard_map split the frequency axis across a device mesh — each device receives
 only its slice of every table.
 
   B   (42, F) complex64   cb42[i] * exp(+2j pi f i / fs)      (scan matmul RHS)
@@ -60,7 +60,7 @@ def cached_freq_tables(freqs_key: tuple) -> FreqTables:
 def padded_freqs(freqs: np.ndarray, multiple: int) -> np.ndarray:
     """Extend the frequency grid upward so len divides `multiple` (sharding
     pad). The extra channels are real frequencies past the right boundary —
-    harmless additional coverage rather than dead lanes."""
+    harmless additional coverage rather than dead channels."""
     n = len(freqs)
     rem = (-n) % multiple
     if rem == 0:

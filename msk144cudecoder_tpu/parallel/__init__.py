@@ -3,8 +3,8 @@
 The reference is single-process single-GPU (SURVEY.md §2); its embarrassing
 grid parallelism over frequency channels (one CUDA block per channel,
 /root/reference/src/msk_context.cuh:102-123) becomes a sharded frequency axis
-on a TPU mesh, and the streaming window axis becomes a sharded data-parallel
-time axis.
+on a device mesh, and the streaming window axis becomes a sharded
+data-parallel time axis.
 """
 
 from .sharding import MeshDecoder, make_mesh, stream_to_windows

@@ -1,12 +1,12 @@
 """Distributed decode runner: `python -m msk144cudecoder_tpu.parallel`.
 
-The single-process CLI scales one chip; this runner scales a capture across
-every chip of every host in a jax.distributed job — the deployment story
-the reference cannot offer (it is single-process single-GPU, SURVEY §2).
-Every process runs the SAME command on the same capture file:
+The single-process CLI drives one device; this runner scales a capture
+across every device of every process in a jax.distributed job — the
+deployment story the reference cannot offer (it is single-process
+single-GPU, SURVEY §2). Every process runs the SAME command on the same
+capture file:
 
-  # host 0 and host 1 of a 2-host CPU/GPU fleet (TPU pods need no args —
-  # jax.distributed discovers the topology):
+  # process 0 and process 1 (two hosts, or two cards of one host):
   python -m msk144cudecoder_tpu.parallel --input capture.raw \
       --coordinator host0:1234 --num-processes 2 --process-id 0 &
   python -m msk144cudecoder_tpu.parallel --input capture.raw \
@@ -27,7 +27,7 @@ How the work is laid out (parallel/multihost.py):
     process order reproduces the single-stream output order.
 
 With one process this is still useful: it frequency-shards a capture over
-all local chips (`--mesh-time 1`).
+all local cards (`--mesh-time 1`).
 """
 
 from __future__ import annotations
@@ -55,8 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "per --read-mode); every process reads its own "
                         "segment of the same file")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator host:port (or MSK144_COORDINATOR; "
-                        "unnecessary on TPU pods)")
+                   help="coordinator host:port (or MSK144_COORDINATOR)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--mesh-time", type=int, default=None,
@@ -69,30 +68,32 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.platform:
-        import jax
+    import os
 
-        jax.config.update("jax_platforms", args.platform)
     import jax
 
     from ..cli import config_from_args, print_banner
     from ..runtime import StreamDecoder
-    from ..runtime.jaxcache import enable_persistent_cache
+    from ..runtime.backend import (DEFAULT_PLATFORM, NoDeviceError,
+                                   enable_persistent_cache, use_platform)
     from . import multihost
     from .sharding import MeshDecoder
 
-    enable_persistent_cache()
     cfg = config_from_args(args)
-
-    import os
-
     if (args.coordinator or args.num_processes is not None
             or os.environ.get("MSK144_COORDINATOR")
             or os.environ.get("MSK144_NUM_PROCESSES")):
-        # multi-process opt-in; TPU pods also work with
-        # --num-processes/--coordinator per jax.distributed conventions
+        # multi-process opt-in: jax.distributed must start before any
+        # backend, so the platform is fixed first and checked after
+        jax.config.update("jax_platforms", args.platform or DEFAULT_PLATFORM)
         multihost.init_distributed(args.coordinator, args.num_processes,
                                    args.process_id)
+    try:
+        use_platform(args.platform)
+    except NoDeviceError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 2
+    enable_persistent_cache()
     mesh = multihost.global_mesh(args.mesh_time, args.mesh_freq)
     pid, nproc = jax.process_index(), jax.process_count()
     n_time = mesh.shape["time"]
@@ -100,7 +101,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if pid == 0:
         print_banner(cfg)
         print(f"Mesh: {n_time} (time) x {n_freq} (freq) over {nproc} "
-              f"process(es), {len(jax.devices())} device(s)", file=sys.stderr)
+              f"process(es), {len(jax.devices())} device(s): "
+              f"{[d.id for d in mesh.devices.flat]}", file=sys.stderr)
 
     if n_time % nproc:
         print(f"mesh time axis ({n_time}) must be a multiple of the "
@@ -146,8 +148,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     per_row_max = -(-total_windows // n_time)  # longest row's window count
     n_steps = -(-per_row_max // wb)
     raw_len = C.WINDOW_LEN * per
+    import time
+
     from jax.experimental import multihost_utils
 
+    t_steady = None  # wall clock after the first step (compile excluded)
     for step in range(n_steps):
         rows = []
         valids = []
@@ -182,6 +187,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             for items in dec.postprocess_batch(batch_view, valid):
                 for item in items:
                     print(item.format_line(), flush=True)
+        if t_steady is None:
+            t_steady = time.perf_counter()
+    if pid == 0 and n_steps > 1:
+        # windows decoded after the first (compiling) step, all processes
+        wall = time.perf_counter() - t_steady
+        n_win = 0
+        for t in range(n_time):
+            lo, hi = multihost.host_window_range(total_windows, n_time, t)
+            n_win += max(0, hi - lo - wb)
+        print(f"Throughput: {n_win} windows in {wall:.2f} s = "
+              f"{wall / n_win * 1e3:.3f} ms/window (steady-state after "
+              f"first step)", file=sys.stderr)
     if pid == 0:
         print("Done")
     return 0

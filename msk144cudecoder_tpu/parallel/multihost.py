@@ -1,25 +1,26 @@
-"""Multi-host (multi-process) decode: jax.distributed + host-local streams.
+"""Multi-process decode: jax.distributed + process-local streams.
 
 The reference is strictly single-process (SURVEY §2: no NCCL/MPI/anything).
-The TPU-native scale-out path (BASELINE.md, N>=2 hosts) works like this:
+The scale-out path works like this:
 
-  * every process calls `init_distributed()` (TPU pods: zero-config;
-    CPU/GPU fleets: coordinator address + process count via args or env)
+  * every process calls `init_distributed()` with a coordinator address and
+    process count (args or MSK144_* env vars) — one process per host, or
+    one per card on a host
   * the global mesh spans all processes' devices: `(time, freq)` as in
-    sharding.py — freq shards ride ICI within a host/slice, time shards
-    land on different hosts so each host ingests its own stream segment
-    over DCN-free local I/O
-  * each host frames its local windows (50% overlap handled locally — a
-    window never straddles hosts because hosts own disjoint half-open
+    sharding.py — freq shards within a process, time shards on different
+    processes so each ingests its own stream segment from local I/O
+  * each process frames its local windows (50% overlap handled locally — a
+    window never straddles processes because they own disjoint half-open
     [start, start + n_windows * HOP) ranges with a one-window halo read
     from their segment tail, mirroring the single-stream slide)
-  * `global_windows()` assembles the global (B, L) array from host-local
+  * `global_windows()` assembles the global (B, L) array from process-local
     batches with jax.make_array_from_process_local_data
-  * results come back fully replicated per host after the freq-axis gather,
-    so every host prints only its own windows' messages
+  * each process materializes only its own time rows of the result
+    (addressable_rows) and prints only its own windows' messages
 
 Tested with multi-process CPU (two python processes, see
-tests/test_multihost.py); the same code path is what a TPU pod slice runs.
+tests/test_multihost.py). On four GPUs with one process per card the
+compile of the (4, 1)-mesh program has crashed one process (PERF.md).
 """
 
 from __future__ import annotations
@@ -37,8 +38,7 @@ from .. import constants as C
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialize jax.distributed. On TPU pods all arguments are discovered
-    from the environment; elsewhere they come from args or MSK144_* env vars."""
+    """Initialize jax.distributed from args or MSK144_* env vars."""
     kwargs = {}
     coord = coordinator_address or os.environ.get("MSK144_COORDINATOR")
     if coord:
@@ -54,7 +54,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 def global_mesh(n_time: Optional[int] = None, n_freq: Optional[int] = None) -> Mesh:
     """(time, freq) mesh over all processes' devices. Default: time = number
-    of processes (each host owns its stream segment), freq = devices/host."""
+    of processes (each owns its stream segment), freq = devices/process."""
     devs = np.asarray(jax.devices())
     n_proc = jax.process_count()
     if n_time is None:
@@ -102,7 +102,7 @@ def addressable_rows(x, lo: int, hi: int) -> Optional[np.ndarray]:
     post-processes — are by construction its locally addressable shards
     (its devices span all freq columns of its time rows, global_mesh).
     Gathering the whole global batch to every process just to slice out
-    local rows (the round-4 runner) cost O(n_hosts) redundant DCN traffic
+    local rows (the round-4 runner) cost O(n_hosts) redundant cross-host traffic
     per step in the one code path that exists to scale hosts.
 
     Returns None when the addressable shards do not cover [lo, hi) (a leaf

@@ -1,6 +1,6 @@
 """Host runtime: streaming shell, SNR tracking, result filtering, metrics.
 
-TPU counterpart of the reference's L1/L6 host layers
+Counterpart of the reference's L1/L6 host layers
 (/root/reference/src/main.cu, snr_tracker.cu, result_filter.cpp, metrics.cpp,
 decode_softbits.cpp). The compute path stays in ops/; everything here is the
 thin host shell around the jitted pipeline.

@@ -1,6 +1,6 @@
-// Native stream framing + sample conversion for the MSK144 TPU decoder.
+// Native stream framing + sample conversion for the MSK144 decoder.
 //
-// TPU-native equivalent of the reference's C++ host data path
+// Equivalent of the reference's C++ host data path
 // (/root/reference/src/main.cu:261-386): the stdin working loop maintains a
 // 5184-sample window advanced by 50% per iteration, RMS-normalizes int16
 // audio (thrust::reduce + transform, main.cu:301-323) or scales int8 IQ by

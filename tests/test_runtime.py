@@ -580,3 +580,77 @@ class TestGapPatternDecode:
         res = dec.decode_block(self._gap_audio("CQ K1ABC FN42", -2.0, seed))
         assert [(r.message, r.pattern_idx, r.num_avg) for r in res] == [
             ("CQ K1ABC FN42", 6, 2)]
+
+
+def _has_cuda_card() -> bool:
+    import shutil
+    import subprocess
+
+    smi = shutil.which("nvidia-smi")
+    return bool(smi) and subprocess.run(
+        [smi, "-L"], capture_output=True).returncode == 0
+
+
+class TestNoDeviceFallback:
+    """Without --platform the shells decode on the GPU; with none present
+    they stop with a clear message instead of carrying on on the CPU."""
+
+    def test_cli_without_platform_fails_without_gpu(self):
+        import os
+        import subprocess
+        import sys
+
+        if _has_cuda_card():
+            pytest.skip("a GPU is present")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "-m", "msk144cudecoder_tpu"], input=b"",
+            capture_output=True, timeout=120, cwd=repo,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert proc.returncode != 0
+        assert b"no cuda device found" in proc.stderr
+        assert b"--platform=cpu" in proc.stderr
+
+    def test_chip_smoke_fails_without_gpu(self, tmp_path):
+        import json
+        import os
+        import subprocess
+        import sys
+
+        if _has_cuda_card():
+            pytest.skip("a GPU is present")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "chip_smoke.py", "--out", str(tmp_path)],
+            capture_output=True, text=True, timeout=300, cwd=repo)
+        assert proc.returncode != 0
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert last["ok"] is False
+
+
+class TestCompileCache:
+    def test_honours_jax_compilation_cache_dir(self, tmp_path, monkeypatch):
+        import jax
+
+        from msk144cudecoder_tpu.runtime import backend
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        monkeypatch.delenv("MSK144_TPU_JAX_CACHE", raising=False)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            assert backend.enable_persistent_cache() == str(tmp_path)
+            # the program sets no directory of its own
+            assert jax.config.jax_compilation_cache_dir == before
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+
+    def test_default_cache_inside_checkout(self):
+        import pathlib
+
+        from msk144cudecoder_tpu.runtime import backend
+
+        repo = pathlib.Path(__file__).resolve().parents[1]
+        path = backend.default_cache_dir()
+        assert path.is_relative_to(repo) and path != repo
+        assert path.name in (repo / ".gitignore").read_text().replace(
+            "/", "").split()
